@@ -1,4 +1,4 @@
-"""metalquicha-tpu: TPU-native fragmented quantum chemistry framework.
+"""metalquicha-tpu: fragmented quantum chemistry framework in JAX.
 
 Many-Body Expansion (MBE) and Generalized MBE (GMBE/PIE) energies, analytic
 gradients (via JAX autodiff), finite-difference Hessians, vibrational
@@ -6,7 +6,7 @@ frequencies, IR intensities and RRHO thermochemistry over a native batched
 GFN1/GFN2-xTB engine, executed as padded fragment batches sharded across a
 `jax.sharding.Mesh`.
 
-TPU-first re-design with the capabilities of the reference Fortran/MPI
+A re-design with the capabilities of the reference Fortran/MPI
 implementation (JorgeG94/metalquicha): the MPI coordinator hierarchy is
 replaced by SPMD sharding; tblite is replaced by a JAX xTB engine; analytic
 gradient code is replaced by autodiff.

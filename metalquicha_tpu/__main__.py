@@ -17,21 +17,21 @@ LOGO = r"""
  | '_ ` _ \ / _ \ __/ _` | |/ _` | || | |/ __| '_ \ / _` | |
  | | | | | |  __/ || (_| | | (_| | \_,_|_| (__| | | | (_| |_|
  |_| |_| |_|\___|\__\__,_|_|\__, |_____|\___|_| |_|\__,_(_)
-                               |_|        tpu-native edition
+                               |_|
 """
 
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(
-        prog="mqc", description="TPU-native fragmented quantum chemistry"
+        prog="mqc", description="fragmented quantum chemistry"
     )
     ap.add_argument("input", nargs="?", help="input .mqc file")
     ap.add_argument("--version", action="store_true")
     ap.add_argument("--platform", default=None,
-                    help="force a JAX platform (cpu/tpu)")
+                    help="force a JAX platform (cpu/cuda)")
     ap.add_argument("--f32", action="store_true",
                     help="force the float32 working dtype (default: by "
-                         "backend — f32 on TPU, f64 on CPU)")
+                         "backend — f32 on an accelerator, f64 on CPU)")
     ap.add_argument("--no-polish", action="store_true",
                     help="disable the f64 host polish of f32 device "
                          "results (raw device precision)")
@@ -40,35 +40,14 @@ def main(argv=None) -> int:
     from . import __version__
 
     if args.version:
-        print(f"mqc (metalquicha-tpu) version {__version__}")
+        print(f"mqc (metalquicha) version {__version__}")
         return 0
     if not args.input:
         ap.error("input file required")
 
-    import jax
+    from .runtime import configure_runtime
 
-    from .compile_cache import enable as _enable_cache
-
-    _enable_cache()
-    import os as _os
-
-    if args.platform:
-        plats = args.platform
-    else:
-        plats = _os.environ.get("JAX_PLATFORMS", "")
-    # keep a host CPU backend next to any accelerator: the f64 polish of
-    # f32 device results runs there (methods/xtb/polish.py)
-    if plats and "cpu" not in plats.split(","):
-        plats = plats + ",cpu"
-    if plats:
-        jax.config.update("jax_platforms", plats)
-    # x64 is ALWAYS on; the working dtype is explicit per backend (factory)
-    # so this only enables the host-side f64 math, it does not change the
-    # device compute dtype.
-    jax.config.update("jax_enable_x64", True)
-    # TPU f32 matmuls default to bf16 passes and stall the SCC at ~1e-2
-    # charge residual; force full-precision accumulation (no-op on CPU)
-    jax.config.update("jax_default_matmul_precision", "highest")
+    configure_runtime(args.platform)
 
     print(LOGO)
     print(f" version {__version__}\n")

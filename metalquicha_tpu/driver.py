@@ -9,7 +9,7 @@ Workflow parity with /root/reference/src/mqc_driver.f90:
 
 Execution replaces the MPI role split (run_serial/run_distributed) with the
 mesh-sharded batch executor; Hessians are batched FD displacement sweeps
-(the TPU-native version of the reference's P2 displacement parallelism).
+(the batched version of the reference's P2 displacement parallelism).
 """
 
 from __future__ import annotations
@@ -59,7 +59,10 @@ from .numerics.vibrational import compute_vibrational_analysis
 from .results import MbeResult
 
 
-def _make_executor(drv: DriverConfig):
+def make_executor(drv: DriverConfig, devices=None):
+    """FragmentExecutor for a driver config: calculator, mesh (over
+    `devices`, default all), polish and rescue wired as a run of `drv`
+    needs them."""
     import jax.numpy as jnp
 
     from .methods.factory import create_calculator
@@ -68,6 +71,7 @@ def _make_executor(drv: DriverConfig):
 
     calc = create_calculator(drv)
     mesh = fragment_mesh(
+        devices,
         global_groups=drv.global_groups,
         nodes_per_group=drv.nodes_per_group,
     )
@@ -99,15 +103,12 @@ def _make_executor(drv: DriverConfig):
                 "raw f32"
             )
     # rescue gate == the driver's own convergence gate
-    # (_check_scf_convergence): any fragment that would hard-error the run
-    # is first re-solved in f64 on the host.
-    rescue_tol = (
-        max(10.0 * drv.method.scf.tolerance, 1e-8)
-        if polisher is not None
-        else None
-    )
+    # (_check_scf_convergence): the executor counts the fragments whose
+    # device SCC misses it and, with a polisher, re-solves them in f64 on
+    # the host before they would hard-error the run.
     return FragmentExecutor(
-        calc, mesh=mesh, polisher=polisher, rescue_tol=rescue_tol
+        calc, mesh=mesh, polisher=polisher,
+        rescue_tol=max(10.0 * drv.method.scf.tolerance, 1e-8),
     )
 
 
@@ -138,7 +139,7 @@ def _check_scf_convergence(aux, drv: DriverConfig, what: str):
 
     The reference aborts when tblite reports a failed singlepoint; a silent
     stall here would return plausible-looking but wrong numbers (the
-    documented TPU bf16 stall mode), so this is a hard error."""
+    stall mode of reduced-precision matmuls), so this is a hard error."""
     resid = np.asarray(aux.get("scf_residual", 0.0))
     tol = max(10.0 * drv.method.scf.tolerance, 1e-8)
     worst = float(resid.max()) if resid.size else 0.0
@@ -184,8 +185,8 @@ def _fragment_hessians(executor, fragments, displacement, drv=None):
 class _ExpansionPlan:
     """Host-side fragment plan for one molecule (build phase of the
     expansion, separated so multi-molecule runs can batch every molecule's
-    fragments through ONE executor pass — the TPU analog of the reference's
-    molecule round-robin, mqc_driver.f90:579-633)."""
+    fragments through ONE executor pass — the batched analog of the
+    reference's molecule round-robin, mqc_driver.f90:579-633)."""
 
     mode: str
     fragments: list
@@ -394,7 +395,7 @@ def run_calculation(
     drv = config_to_driver(cfg)
     for key, val in (driver_overrides or {}).items():
         setattr(drv, key, val)
-    executor = executor or _make_executor(drv)
+    executor = executor or make_executor(drv)
     systems = config_to_system_geometries(cfg)
 
     outputs = _run_expansions(systems, drv, executor)
@@ -430,10 +431,11 @@ def run_calculation(
     return outputs
 
 
-def run_file(path: str, write_json: bool = True, driver_overrides=None):
+def run_file(path: str, write_json: bool = True, driver_overrides=None,
+             executor=None):
     cfg = read_mqc_file(path)
     return run_calculation(
-        cfg, input_path=path, write_json=write_json,
+        cfg, input_path=path, write_json=write_json, executor=executor,
         driver_overrides=driver_overrides,
     )
 
@@ -463,6 +465,6 @@ def compute_energy_and_forces(
         if want_hessian
         else (CalcType.GRADIENT if want_gradient else CalcType.ENERGY)
     )
-    executor = executor or _make_executor(drv2)
+    executor = executor or make_executor(drv2)
     out = _run_expansion(sys_geom, drv2, executor)
     return out.result.total_energy, out.result.gradient, out.result.hessian

@@ -2,7 +2,7 @@
 
 The reference assembles bottom-up per level with hash-table subset lookups
 (/root/reference/src/fragmentation/mbe/mqc_mbe.f90:587-1029, delta recurrence
-:32-94). Here the same algebra is reorganized TPU-first:
+:32-94). Here the same algebra is reorganized batch-first:
 
 1. Scalar deltas per fragment (for the JSON breakdown) use a dense
    precomputed subset-index table — a vectorizable gather + segment-sum

@@ -90,8 +90,6 @@ class Timer:
 _KNOWLEDGE = (
     "The Many-Body Expansion truncated at order N is exact for any system "
     "whose energy has no (N+1)-body or higher terms.",
-    "A TPU v5p MXU performs a 128x128 bf16 matmul per cycle — the SCC's "
-    "Fock builds ride it for free once fragments are batched.",
     "Mulliken charges are basis-dependent: the same molecule in a bigger "
     "basis can show very different partial charges.",
     "The inclusion-exclusion principle was already known to de Moivre in "

@@ -37,9 +37,11 @@ def create_calculator(drv: DriverConfig):
             solvation = make_solvation_model(xtb, variant)
 
         # Working dtype is EXPLICIT, never inferred from the x64 flag:
-        # non-CPU backends run f32 (this TPU has no f64 linalg.solve; the
-        # f64 host polish restores accuracy — methods/xtb/polish.py), CPU
-        # runs f64. force_dtype pins it (CLI --f32 / tests).
+        # non-CPU backends run f32 with the f64 host polish restoring
+        # accuracy (methods/xtb/polish.py), CPU runs f64. The accelerator
+        # choice is carried over; f64-on-device vs f32+polish is decided
+        # by measurement (ROADMAP design item 2). force_dtype pins it (CLI
+        # --f32 / tests).
         import jax
         import jax.numpy as jnp
 

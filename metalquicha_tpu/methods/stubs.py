@@ -4,7 +4,7 @@ The reference ships non-functional placeholders that return dummy values
 (/root/reference/src/methods/mqc_method_hf.f90:47-107 energy = -1.0;
 mqc_method_dft.f90:108-143 energy = -1.0 * natoms; mcscf similar). These
 exist so the framework/method seam is exercised end-to-end; real HF/DFT on
-TPU (dense integrals on the MXU) is future work.
+an accelerator (dense integrals as batched matmuls) is future work.
 """
 
 from __future__ import annotations

@@ -4,7 +4,7 @@ Host-side (NumPy) construction of dense padded arrays from PhysicalFragments
 and the parameter tables; the result is a pytree the jitted/vmapped engine
 consumes. This replaces the reference's per-fragment tblite structure builds
 (/root/reference/src/methods/mqc_method_xtb.f90:95-118) with a batch-first
-layout: the fragment axis is the TPU data-parallel axis.
+layout: the fragment axis is the device data-parallel axis.
 
 Padding conventions:
 - atoms: mask=0, numbers=0, coords placed far away on a diagonal line to

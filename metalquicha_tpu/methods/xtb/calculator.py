@@ -252,7 +252,7 @@ def single_point_energy(coords, frag: FragmentData, settings: EngineSettings,
     supplied state — it re-converges to this calculator's scf_tol in a
     handful of Anderson iterations — then refine with
     max(diff_scf_iters, 2) fully-traced fixed-point steps. The warm-start
-    entry for mixed-precision workflows (f32 TPU SCC, f64 host polish;
+    entry for mixed-precision workflows (f32 device SCC, f64 host polish;
     methods/xtb/polish.py) and for sequential geometries (AIMD/FD
     sweeps). GFN1: the shell-charge vector; GFN2: the packed AES state
     (shell charges + atomic dipoles/quadrupoles, i.e. the engine's own
@@ -272,10 +272,10 @@ def single_point_energy(coords, frag: FragmentData, settings: EngineSettings,
         # a contraction-rate-dependent residual, and the energy GRADIENT'S
         # error is first order in that residual (the variational functional
         # is stationary only exactly at q*) — FD Hessians divide it by the
-        # displacement step, which showed up as 0.14 cm^-1 frequency noise
-        # on the TPU production path. The warm-started Anderson solve
-        # reaches f64 tolerance in a handful of iterations, restoring the
-        # same residual scale as the all-f64 parity path.
+        # displacement step (a 1e-7 residual shows up as ~0.1 cm^-1 of
+        # frequency noise). The warm-started Anderson solve reaches f64
+        # tolerance in a handful of iterations, restoring the same
+        # residual scale as the all-f64 parity path.
         q_star, resid = _converge_charges(coords, frag, kt, settings,
                                           solvation, q0=q_init)
         q_init = q_star
@@ -441,8 +441,8 @@ def single_point_energy(coords, frag: FragmentData, settings: EngineSettings,
     aux = {
         "charges": q_at,
         # shell-resolved converged charges (GFN2: packed AES state): the
-        # hand-off point for mixed-precision workflows — f32 TPU SCC
-        # followed by f64 host refine+energy (tools/hybrid_energy.py)
+        # hand-off point for mixed-precision workflows — f32 device SCC
+        # followed by f64 host refine+energy (methods/xtb/polish.py)
         "shell_charges": q_star,
         "scf_residual": resid,
         "dipole": dipole,
@@ -516,12 +516,12 @@ class XtbCalculator:
         host-side on concrete batch data, so each case compiles once.
         """
         s = self.settings
-        if not (s.use_pallas_eigh and self.dtype == jnp.float32):
+        if not (s.inloop_sp2 and self.dtype == jnp.float32):
             return s
-        from .engine import PALLAS_EIGH_MAX_N
+        from .engine import SP2_MIN_NAO
 
-        if frag.ao_mask.shape[-1] <= PALLAS_EIGH_MAX_N:
-            return s  # Pallas Jacobi path: a true eigh, smearing intact
+        if frag.ao_mask.shape[-1] <= SP2_MIN_NAO:
+            return s  # in-loop eigh: smearing intact
         nums = np.asarray(frag.numbers)
         d_block = (
             ((nums >= 21) & (nums <= 30))
@@ -530,7 +530,7 @@ class XtbCalculator:
             | (nums >= 89)
         )
         if d_block.any() or np.asarray(frag.nuhf).any():
-            return s._replace(use_pallas_eigh=False)
+            return s._replace(inloop_sp2=False)
         return s
 
     def make_batch(self, fragments, pad_to=None) -> FragmentData:

@@ -29,11 +29,11 @@ from ...constants import KB_HARTREE
 from .overlap import overlap_matrix
 from .batch import PAD_LEVEL
 
-#: largest AO dimension handled by the Pallas Jacobi in-loop eigensolver
-#: ((N, N, 128) x3 VMEM tiles; N=96 exceeds VMEM). Above it the f32 TPU
-#: path switches to SP2 purification (ops/sp2.py). Module-level so tests
-#: can lower it to exercise the SP2 path on small molecules.
-PALLAS_EIGH_MAX_N = 64
+#: AO dimension above which `inloop_sp2` replaces the in-loop eigh with SP2
+#: purification (ops/sp2.py); at or below it the in-loop solver stays
+#: `_general_eigh`. Carried over, not yet tuned on the GPU. Module-level so
+#: tests can lower it to exercise the SP2 path on small molecules.
+SP2_MIN_NAO = 64
 
 
 class EngineSettings(NamedTuple):
@@ -92,12 +92,11 @@ class EngineSettings(NamedTuple):
     #: d3 container uses the classic single-exponential D3 CN regardless of
     #: the hamiltonian CN type, so these are INDEPENDENT knobs.
     cn_type_d3: str = "exp"
-    #: use the fast in-loop SCC solvers on the TPU f32 path: the Pallas
-    #: batched Jacobi eigensolver for AO dims <= 64 (~3.4x faster than
-    #: XLA's eigh there) and SP2 density purification (ops/sp2.py, pure
-    #: MXU matmuls) for larger AO dims where the Jacobi kernel exceeds
-    #: VMEM. The final variational energy evaluation always uses jnp eigh.
-    use_pallas_eigh: bool = False
+    #: f32 only: build the in-loop SCC density by SP2 purification
+    #: (ops/sp2.py, batched matmuls) instead of eigh for AO dims above
+    #: SP2_MIN_NAO. The final variational energy evaluation always uses
+    #: jnp eigh.
+    inloop_sp2: bool = False
     #: GFN2 mode: self-consistent atomic dipoles/quadrupoles (AES) and
     #: charge-scaled (D4-style) dispersion inside the SCC
     multipoles: bool = False
@@ -732,23 +731,26 @@ def scf_solve(H0, S, gamma, batch, kt, settings: EngineSettings, gamma_at=None,
     plays the role of tblite's Broyden mixer — the converged point is
     mixer-independent; this just gets there in ~3x fewer diagonalizations.
     """
-    fast_inloop = settings.use_pallas_eigh and S.dtype == jnp.float32
-    use_pallas = fast_inloop and S.shape[-1] <= PALLAS_EIGH_MAX_N
-    # Above the Jacobi kernel's VMEM ceiling, switch the in-loop solver to
-    # SP2 density purification (ops/sp2.py): ~48 batched (N,N) matmuls on
-    # the MXU replace the latency-bound XLA eigh. Valid inside the
-    # fixed-point loop because only the density/shell populations are
-    # needed; the final variational energy always re-solves with jnp eigh.
-    use_sp2 = fast_inloop and S.shape[-1] > PALLAS_EIGH_MAX_N
-    if use_pallas or use_sp2:
+    # SP2 density purification (ops/sp2.py) in place of the in-loop eigh:
+    # valid inside the fixed-point loop because only the density/shell
+    # populations are needed; the final variational energy always
+    # re-solves with jnp eigh.
+    use_sp2 = (
+        settings.inloop_sp2
+        and S.dtype == jnp.float32
+        and S.shape[-1] > SP2_MIN_NAO
+    )
+    if use_sp2:
+        from ...ops.sp2 import sp2_density
+
         # Orthogonalize once via canonical S^-1/2 WITH linear-dependence
         # removal, mirroring the f64 path's _ortho_factors: coincident GMBE
-        # caps make S singular, and the old bare rsqrt(max(s, 1e-10)) clamp
-        # amplified f32 null-space eigenvalue noise by ~1e5 (ADVICE r3).
+        # caps make S singular, and a bare rsqrt(max(s, 1e-10)) clamp
+        # amplifies f32 null-space eigenvalue noise by ~1e5 (ADVICE r3).
         # Threshold 1e-5 is the f32-scaled analog of the f64 path's 1e-7
         # (eigh eigenvalue noise ~ eps_mach * ||S||); removed combos are
-        # pinned at +PAD_LEVEL in the transformed Fock so they are never
-        # occupied by either the Jacobi solver or SP2's trace projection.
+        # pinned at +PAD_LEVEL in the transformed Fock so SP2's trace
+        # projection never occupies them.
         s_eig, U = jnp.linalg.eigh(S)
         lindep = 1e-5
         s_keep = (s_eig > lindep).astype(S.dtype)
@@ -759,10 +761,6 @@ def scf_solve(H0, S, gamma, batch, kt, settings: EngineSettings, gamma_at=None,
         shift_out = PAD_LEVEL * (
             jnp.eye(S.shape[-1], dtype=S.dtype) - (U * s_keep[None, :]) @ U.T
         )
-        L = S  # unused
-
-    if use_sp2:
-        from ...ops.sp2 import sp2_density
 
         def make_density(F):
             Po = sp2_density(
@@ -772,20 +770,10 @@ def scf_solve(H0, S, gamma, batch, kt, settings: EngineSettings, gamma_at=None,
             return Xs @ Po @ Xs
 
     else:
-        if use_pallas:
-            # Jacobi kernel inside the loop
-            from ...ops.jacobi_eigh import jacobi_eigh
-
-            def solve_eigh(F, _L):
-                eps, Cp = jacobi_eigh(Xs @ F @ Xs + shift_out)
-                return eps, Xs @ Cp
-
-        else:
-            solve_eigh = _general_eigh
-            L = _ortho_factors(S)
+        L = _ortho_factors(S)
 
         def make_density(F):
-            eps, C = solve_eigh(F, L)
+            eps, C = _general_eigh(F, L)
             f, _ = occupations(
                 eps, batch.nelec, batch.nuhf, kt, batch.ao_mask,
                 settings.fixed_occupations,

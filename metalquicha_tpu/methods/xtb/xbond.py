@@ -37,14 +37,15 @@ def halogen_bond_energy(coords, numbers, xbond_strength, rcov, atom_mask):
     """
     nat = coords.shape[0]
     diff = coords[:, None, :] - coords[None, :, :]
-    r = jnp.sqrt((diff**2).sum(-1) + jnp.eye(nat))
+    eye = jnp.eye(nat, dtype=coords.dtype)
+    r = jnp.sqrt((diff**2).sum(-1) + eye)
 
     is_x = (xbond_strength > 0.0) & (atom_mask > 0.5)
     is_d = jnp.isin(numbers, jnp.asarray(DONOR_Z)) & (atom_mask > 0.5)
 
     # covalent neighbor of each X: nearest other real atom
     big = 1.0e6
-    r_nn = r + jnp.eye(nat) * big
+    r_nn = r + eye * big
     r_nn = jnp.where(atom_mask[None, :] > 0.5, r_nn, big)
     nn = jax.lax.stop_gradient(jnp.argmin(r_nn, axis=1))  # (nat,)
 

@@ -3,7 +3,7 @@
 The reference generates all 3N +/- displaced geometries and assembles
 H[i,j] = (g_j(+h) - g_j(-h)) / 2h, then symmetrizes
 (/root/reference/src/utils/mqc_finite_differences.f90:31-201). Here the 6N
-displaced geometries form ONE batch axis — the TPU-native version of its
+displaced geometries form ONE batch axis — the batched version of its
 displacement-parallel distributed Hessian (P2 scheme).
 """
 

@@ -1,22 +1,19 @@
-"""SP2 density-matrix purification — MXU-native diagonalization-free SCC.
+"""SP2 density-matrix purification — a diagonalization-free SCC step.
 
-Motivation (VERDICT r2 #6): XLA's eigh on TPU is latency-bound for
-medium-size Fock matrices (measured 0.042 TFLOP/s at batch 64, N=256 —
-<0.1% of f32 peak), and the lane-vectorized Pallas Jacobi kernel cannot
-scale past N~64 (VMEM tiles are (N, N, 128); the rotation sweep is
-serial in N^2). But inside the *non-differentiated* SCC fixed-point loop
-(engine.scf_solve) eigenpairs are never needed — only the density matrix
-that generates the shell populations. The second-order spectral
-projection (SP2) recursion of Niklasson [PRB 66, 155115 (2002)] builds
-the zero-temperature density projector from ~30-60 *batched matmuls*:
+Inside the *non-differentiated* SCC fixed-point loop (engine.scf_solve)
+eigenpairs are never needed — only the density matrix that generates the
+shell populations. The second-order spectral projection (SP2) recursion of
+Niklasson [PRB 66, 155115 (2002)] builds the zero-temperature density
+projector from ~30-60 *batched matmuls*:
 
     X_0     = (emax I - F) / (emax - emin)          # spectrum -> [0, 1]
     X_{n+1} = X_n^2             if tr(X_n^2) closer to Nocc
             = 2 X_n - X_n^2     otherwise
 
-which is pure MXU work — each iteration is ONE (B, N, N) matmul plus
-elementwise selects, so throughput scales with matmul peak instead of
-eigensolver latency.
+Each iteration is ONE (B, N, N) matmul plus elementwise selects, so its
+cost scales with matmul throughput instead of eigensolver latency. Whether
+that beats the batched eigh on a given device is a measurement
+(`chip_smoke.py` times both density builds).
 
 Validity: SP2 yields the T=0 projector (integer occupations). The
 production SCC runs Fermi smearing at 300 K, where kT ~ 9.5e-4 Ha; for
@@ -24,9 +21,8 @@ closed-shell fragments with a HOMO-LUMO gap above ~1 eV the smeared and
 T=0 fixed points agree to <1e-10 Ha (one of the CLI's rotating
 knowledge-level exit facts, logging_._KNOWLEDGE). The final
 variational energy evaluation ALWAYS goes through the true eigh —
-SP2 only accelerates the charge self-consistency iterations, exactly
-like the Pallas Jacobi path it complements (engine.py gates: Jacobi for
-N<=64, SP2 for larger AO dimensions).
+SP2 only accelerates the charge self-consistency iterations (engine.py
+gate: `inloop_sp2` for AO dims above `SP2_MIN_NAO`, f32 only).
 
 Reference parity note: tblite/the reference diagonalize with LAPACK
 sygvd inside their SCC (mqc_method_xtb.f90 delegating to tblite); the

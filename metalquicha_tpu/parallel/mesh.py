@@ -2,17 +2,19 @@
 
 The reference distributes fragments through a 3-tier MPI request/reply
 hierarchy (global coordinator / group coordinators / node workers,
-/root/reference/src/fragmentation/mbe/mqc_mbe_mpi_fragment_distribution_scheme.F90).
-On TPU the entire scheme collapses into SPMD: fragments are a batch axis
-sharded over a `jax.sharding.Mesh`; XLA inserts the collectives.
+src/fragmentation/mbe/mqc_mbe_mpi_fragment_distribution_scheme.F90 in
+the reference). Here the entire scheme collapses into SPMD: fragments are
+a batch axis sharded over a `jax.sharding.Mesh`; XLA inserts the
+collectives.
 
 The reference's topology knobs (`global_groups` / `nodes_per_group`,
-/root/reference/src/mqc_driver.f90:354-388) map to mesh axis factors here:
-a 2D ('group', 'frag') mesh whose outer axis has `global_groups` slots (or
-n_devices / nodes_per_group). The fragment batch axis is sharded over BOTH
-axes — physically identical results, but the mesh layout mirrors the
-requested group topology so multi-slice placements can bind 'group' to the
-slower (DCN) axis and 'frag' to ICI.
+mqc_driver.f90:354-388) map to mesh axis factors here: a 2D ('group',
+'frag') mesh whose outer axis has `global_groups` slots (or n_devices /
+nodes_per_group). The fragment batch axis is sharded over BOTH axes, so
+results are identical for every layout. The layout only mirrors the
+requested group topology: the cards of one host are joined all to all by
+NVLink, so no axis is slower than the other and the mesh shape carries
+no placement cost.
 """
 
 from __future__ import annotations

@@ -280,11 +280,11 @@ def test_executor_bucketing_and_mesh():
 def test_device_count_invariance_mbe2(water_dimer_cfg):
     """MBE(2) totals must be identical on 1, 2, and 8 devices.
 
-    The TPU analog of the reference's serial == mpirun invariant
+    The mesh analog of the reference's serial == mpirun invariant
     (validation runs both; mqc_driver.f90:440-445)."""
     import jax
 
-    from metalquicha_tpu.driver import _make_executor, _run_expansion
+    from metalquicha_tpu.driver import _run_expansion
     from metalquicha_tpu.io.adapter import config_to_system_geometry
     from metalquicha_tpu.parallel.executor import FragmentExecutor
     from metalquicha_tpu.parallel.mesh import fragment_mesh

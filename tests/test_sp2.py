@@ -1,7 +1,7 @@
 """SP2 purification: projector correctness + SCC fixed-point agreement.
 
 The SP2 recursion (ops/sp2.py) replaces the in-loop eigensolver on the
-f32 TPU path for AO dims above the Pallas Jacobi VMEM ceiling. These
+f32 path when `inloop_sp2` is set, for AO dims above SP2_MIN_NAO. These
 tests check the projector against eigh (with padding and open shells)
 and that an SCC driven by SP2 densities lands on the same converged
 charges as the eigh-driven loop.
@@ -100,9 +100,8 @@ def test_sp2_density_open_shell_and_batch():
 def test_sp2_scc_matches_eigh_fixed_point(monkeypatch):
     """Full SCC on water (f32): SP2-driven charges == eigh-driven charges.
 
-    Forces the SP2 gate by lowering PALLAS_EIGH_MAX_N below water's AO
-    count; on CPU the Pallas kernel is unavailable anyway, so this is the
-    exact code path the TPU takes for large fragments.
+    Forces the SP2 gate by lowering SP2_MIN_NAO below water's AO count,
+    so this is the exact code path large f32 fragments take.
     """
     import jax
     import jax.numpy as jnp
@@ -125,8 +124,8 @@ def test_sp2_scc_matches_eigh_fixed_point(monkeypatch):
         lambda x: x.astype(jnp.float32) if x.dtype == jnp.float64 else x, frag
     )
     kt = calc.settings.electronic_temp * engine.KB_HARTREE
-    s_eigh = calc.settings._replace(use_pallas_eigh=False)
-    s_fast = calc.settings._replace(use_pallas_eigh=True)
+    s_eigh = calc.settings._replace(inloop_sp2=False)
+    s_fast = calc.settings._replace(inloop_sp2=True)
 
     def charges(settings):
         def one(coords, f):
@@ -144,7 +143,7 @@ def test_sp2_scc_matches_eigh_fixed_point(monkeypatch):
         return jax.vmap(lambda f: one(f.coords, f))(frag32)
 
     # SP2 path (gate forced below water's 6 AOs)
-    monkeypatch.setattr(engine, "PALLAS_EIGH_MAX_N", 2)
+    monkeypatch.setattr(engine, "SP2_MIN_NAO", 2)
     q_sp2, r_sp2 = charges(s_fast)
     q_ref, r_ref = charges(s_eigh)
     assert float(r_ref.max()) < 1e-5
@@ -173,27 +172,27 @@ def test_sp2_gate_disabled_for_d_block_and_open_shell(monkeypatch):
     from metalquicha_tpu.methods.xtb.engine import settings_from_params
 
     calc = XtbCalculator(
-        settings_from_params("gfn1", use_pallas_eigh=True),
+        settings_from_params("gfn1", inloop_sp2=True),
         dtype=jnp.float32,
     )
-    # force every batch above the Jacobi ceiling so SP2 would be selected
-    monkeypatch.setattr(engine, "PALLAS_EIGH_MAX_N", 2)
+    # force every batch above the threshold so SP2 would be selected
+    monkeypatch.setattr(engine, "SP2_MIN_NAO", 2)
 
     water = (np.array([8, 1, 1]), np.array(
         [[0.0, 0.0, 0.0], [0.0, 1.43, 1.1], [0.0, -1.43, 1.1]]), 0, 1)
     closed = calc.make_batch([water])
-    assert calc._settings_for(closed).use_pallas_eigh is True
+    assert calc._settings_for(closed).inloop_sp2 is True
 
     tio = (np.array([22, 8]), np.array([[0.0, 0.0, 0.0], [0.0, 0.0, 3.1]]),
            0, 1)
     d_block = calc.make_batch([tio])
-    assert calc._settings_for(d_block).use_pallas_eigh is False
+    assert calc._settings_for(d_block).inloop_sp2 is False
 
     doublet = (np.array([8, 1]), np.array(
         [[0.0, 0.0, 0.0], [0.0, 0.0, 1.83]]), 0, 2)
     open_shell = calc.make_batch([doublet])
-    assert calc._settings_for(open_shell).use_pallas_eigh is False
+    assert calc._settings_for(open_shell).inloop_sp2 is False
 
-    # below the ceiling the Jacobi path (a true eigh) stays on
-    monkeypatch.setattr(engine, "PALLAS_EIGH_MAX_N", 64)
-    assert calc._settings_for(d_block).use_pallas_eigh is True
+    # at or below the threshold the in-loop eigh runs and the knob stays
+    monkeypatch.setattr(engine, "SP2_MIN_NAO", 64)
+    assert calc._settings_for(d_block).inloop_sp2 is True

@@ -327,7 +327,7 @@ def test_f32_degenerate_dimer_gradient():
     apart produce exactly degenerate eigenvalue pairs across the monomers.
     eigh_safe's old backward kernel g/(g^2+1e-18) was f64-tuned; at f32
     noise-level gaps (~1e-6) it amplified by ~1e6, returning |g| ~43x too
-    large while the SCC reported converged (the TPU production path). The
+    large while the SCC reported converged (the f32 production path). The
     dtype-aware degeneracy cut must keep f32 within ~1e-3 of f64.
     """
     import jax.numpy as jnp
@@ -354,7 +354,7 @@ def test_q_init_warm_start_matches_cold_scc(calc):
     """single_point_energy(q_init=...) recovers the cold-SCC fixed point.
 
     The warm-start entry powers the mixed-precision workflow
-    (tools/hybrid_energy.py): the variational functional is stationary at
+    (methods/xtb/polish.py): the variational functional is stationary at
     q*, so polishing slightly-perturbed charges with 2 damped steps must
     reproduce the converged energy to second order in the perturbation.
     """

@@ -25,38 +25,26 @@ def main() -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--filter", default=None)
     ap.add_argument("--tol", type=float, default=None)
-    ap.add_argument("--platform", default="cpu")
+    ap.add_argument("--platform", default="cpu", choices=("cpu", "cuda"),
+                    help="JAX platform: cpu (the f64 parity path) or cuda "
+                         "(f32 device SCC + f64 host polish)")
     ap.add_argument("--f32", action="store_true",
-                    help="force the float32 device dtype (the TPU working "
-                         "precision; default: by backend — f64 on CPU)")
+                    help="force the float32 device dtype (the accelerator "
+                         "working precision; default: by backend — f64 on "
+                         "CPU)")
     ap.add_argument("--polish", default="auto", choices=("auto", "off"),
                     help="f64 host polish of f32 device results (auto = "
-                         "on whenever the device dtype is f32 and a cpu "
-                         "backend exists; off = raw device precision, the "
-                         "TPU_ACCURACY raw-f32 leg)")
+                         "on whenever the device dtype is f32; off = raw "
+                         "device precision)")
     ap.add_argument("--json-out", default=None,
                     help="write per-case results/deltas to this JSON file")
     ap.add_argument("--skip-slow", action="store_true",
                     help="skip w20/gly10-scale tests")
     args = ap.parse_args()
 
-    import jax
+    from metalquicha_tpu.runtime import configure_runtime
 
-    from metalquicha_tpu.compile_cache import enable as _enable_cache
-
-    _enable_cache()
-    plats = args.platform
-    # keep a host CPU backend next to any accelerator: the f64 polish of
-    # f32 device results runs there (methods/xtb/polish.py)
-    if args.polish == "auto" and "cpu" not in plats.split(","):
-        plats = plats + ",cpu"
-    jax.config.update("jax_platforms", plats)
-    # x64 is always on — the device working dtype is explicit (factory
-    # picks f32 on accelerators, f64 on CPU; --f32 pins it), so this only
-    # enables the host-side f64 math.
-    jax.config.update("jax_enable_x64", True)
-    # TPU f32 matmuls default to bf16 passes and stall the SCC (no-op CPU)
-    jax.config.update("jax_default_matmul_precision", "highest")
+    configure_runtime(args.platform)
 
     from metalquicha_tpu.driver import run_calculation
     from metalquicha_tpu.io.config import parse_mqc_string
